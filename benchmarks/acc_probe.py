@@ -1,7 +1,7 @@
 """Accuracy probe: run the tracker at the bench operating point, print ATE.
 
 Usage: python _acc_probe.py [label]
-Env: TPUVO_PROBE_MODE (fixed|parity), standard bench env knobs honored.
+Env: JAXVO_PROBE_MODE (fixed|parity), standard bench env knobs honored.
 """
 import os
 import sys
@@ -13,17 +13,17 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from tpuvo.config import EngineConfig, MatcherConfig, PICPConfig
-    from tpuvo.data import load_sequence
-    from tpuvo.engine import vo
-    from tpuvo.engine.eval import evaluate, metrics_dict
+    from jaxvo.config import EngineConfig, MatcherConfig, PICPConfig
+    from jaxvo.data import load_sequence
+    from jaxvo.engine import vo
+    from jaxvo.engine.eval import evaluate, metrics_dict
 
-    mode = os.environ.get("TPUVO_PROBE_MODE", "fixed")
+    mode = os.environ.get("JAXVO_PROBE_MODE", "fixed")
     cfg = EngineConfig(
         mode=mode,
         matcher=MatcherConfig(method="direct"),
-        picp=PICPConfig(convergence_threshold=float(os.environ.get("TPUVO_PROBE_CONV", "1e-4"))),
-        triangulation_refine_iters=int(os.environ.get("TPUVO_PROBE_REFINE", "2")),
+        picp=PICPConfig(convergence_threshold=float(os.environ.get("JAXVO_PROBE_CONV", "1e-4"))),
+        triangulation_refine_iters=int(os.environ.get("JAXVO_PROBE_REFINE", "2")),
     )
     seq = load_sequence("/root/reference/data", cfg.n_frames)
     F = seq.uv.shape[0]

@@ -1,8 +1,8 @@
 """Multi-rep, core-pinned 1-vs-2-process scaling for every parallel/ module.
 
-Round-5 evidence completion (VERDICT r4 items 5+6): the sharded Schur BA
-had the only fair scaling row; this benchmark produces the same
-marginal-cost, taskset-pinned measurement for ALL THREE distributed
+A CPU-process proxy (its numbers are CPU numbers, not GPU ones):
+ba_scaling.py measures only the sharded Schur BA; this benchmark makes
+the same marginal-cost, taskset-pinned measurement for ALL THREE distributed
 paths — sharded BA (parallel/ba_sharded.py), the landmark-sharded
 matcher at 131k landmarks (parallel/match_sharded.py), and the
 edge-sharded PGO at ~1k edges (parallel/posegraph_sharded.py) — and
@@ -41,9 +41,9 @@ COMMON = textwrap.dedent(
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from tpuvo.parallel.mesh import maybe_distributed_init
+    from jaxvo.parallel.mesh import maybe_distributed_init
 
-    expect = int(os.environ.get("TPUVO_EXPECT_PROCS", "2"))
+    expect = int(os.environ.get("JAXVO_EXPECT_PROCS", "2"))
     n_proc = maybe_distributed_init()
     assert n_proc == expect, f"expected {expect} processes, got {n_proc}"
 
@@ -74,10 +74,10 @@ COMMON = textwrap.dedent(
 
 WORKER_BA = COMMON + textwrap.dedent(
     """
-    from tpuvo.ba.window import BAProblem
-    from tpuvo.config import BAConfig
+    from jaxvo.ba.window import BAProblem
+    from jaxvo.config import BAConfig
     from benchmarks.ba_scaling import build_problem
-    from tpuvo.parallel.ba_sharded import shard_ba_problem, sharded_ba_solve
+    from jaxvo.parallel.ba_sharded import shard_ba_problem, sharded_ba_solve
 
     cfg, prob = build_problem(W=6, L=16384, obs_per_frame=16384, seed=5)
     K = jnp.asarray(cfg.K())
@@ -105,7 +105,7 @@ WORKER_BA = COMMON + textwrap.dedent(
 
 WORKER_MATCH = COMMON + textwrap.dedent(
     """
-    from tpuvo.parallel.match_sharded import sharded_match_descriptors
+    from jaxvo.parallel.match_sharded import sharded_match_descriptors
 
     N, M, D = 128, 131072, 10
     rng = np.random.default_rng(0)
@@ -136,9 +136,9 @@ WORKER_MATCH = COMMON + textwrap.dedent(
 
 WORKER_PGO = COMMON + textwrap.dedent(
     """
-    from tpuvo.ba.posegraph import build_graph, odometry_edges
-    from tpuvo.parallel.posegraph_sharded import sharded_pgo_solve
-    from tpuvo.ops import lie
+    from jaxvo.ba.posegraph import build_graph, odometry_edges
+    from jaxvo.parallel.posegraph_sharded import sharded_pgo_solve
+    from jaxvo.ops import lie
 
     # noisy circle trajectory, odometry backbone + random loop edges.
     # The sharded axis is EDGES; the per-iteration psum carries the full
@@ -147,8 +147,8 @@ WORKER_PGO = COMMON + textwrap.dedent(
     # Defaults: F=128, 4000 extra edges (H = 2.3 MB/psum).  F=512/500
     # edges is the communication-bound counterexample (H = 37 MB/psum,
     # efficiency ~0.39 on loopback TCP) — settable via env to record it.
-    F = int(os.environ.get("TPUVO_PGO_F", "128"))
-    NE = int(os.environ.get("TPUVO_PGO_EXTRA", "4000"))
+    F = int(os.environ.get("JAXVO_PGO_F", "128"))
+    NE = int(os.environ.get("JAXVO_PGO_EXTRA", "4000"))
     rng = np.random.default_rng(3)
     theta = np.linspace(0, 2 * np.pi, F).astype(np.float32)
     poses = np.tile(np.eye(4, dtype=np.float32), (F, 1, 1))
@@ -185,7 +185,7 @@ SCALE_DESC = {
     "ba": "sharded Schur BA, W=6 L=16384 98k obs, unit=GN iteration",
     "match": "landmark-sharded matcher, 128 queries x 131072 landmarks, "
              "unit=full match",
-    "pgo": "edge-sharded PGO (env TPUVO_PGO_F/TPUVO_PGO_EXTRA; default "
+    "pgo": "edge-sharded PGO (env JAXVO_PGO_F/JAXVO_PGO_EXTRA; default "
            "F=128, 4000 extra edges), unit=LM iteration",
 }
 
@@ -204,7 +204,7 @@ def run_workers(worker_src, n_procs, tmpdir, timeout=600):
         **os.environ,
         "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
         "JAX_NUM_PROCESSES": str(n_procs),
-        "TPUVO_EXPECT_PROCS": str(n_procs),
+        "JAXVO_EXPECT_PROCS": str(n_procs),
         "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
         "XLA_FLAGS": "--xla_force_host_platform_device_count=1",
     }
@@ -268,6 +268,7 @@ def main():
         s = sorted(effs)
         row = {
             "bench": "dist_scaling",
+            "platform": "cpu",
             "workload": what,
             "fair_reps": args.fair_reps,
             "efficiency_median": s[len(s) // 2],

@@ -2,6 +2,11 @@
 aggregate XLA op self-times from the xplane, grouped by fusion name.
 
 Usage: python benchmarks/profile_batched.py [--batch 256] [--top 30]
+           [--data DATASET_DIR] [--outdir TRACE_DIR]
+
+Without ``--data`` it traces the seeded control sequence
+(``jaxvo.profiles.control_sequence``); without ``--outdir`` the trace goes
+to a fresh temporary directory.
 """
 
 import argparse
@@ -11,49 +16,40 @@ import json
 import os
 import re
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-import jax.numpy as jnp
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--top", type=int, default=30)
-    ap.add_argument("--data", default="/root/reference/data")
+    ap.add_argument("--data", default="",
+                    help="dataset dir (default: the seeded control sequence)")
     ap.add_argument("--matcher", default="direct")
-    ap.add_argument("--outdir", default="/tmp/tpuvo_trace")
+    ap.add_argument("--outdir", default="",
+                    help="trace directory (default: a fresh temporary one)")
     args = ap.parse_args()
 
-    from tpuvo.config import EngineConfig, MatcherConfig, PICPConfig
-    from tpuvo.data import load_sequence
-    from tpuvo.engine import vo
+    from jaxvo import profiles
+    from jaxvo.config import EngineConfig, MatcherConfig, PICPConfig
+    from jaxvo.data import load_sequence
 
     cfg = EngineConfig(
         mode="fixed",
         matcher=MatcherConfig(method=args.matcher),
         picp=PICPConfig(convergence_threshold=1e-4),
     )
-    seq = load_sequence(args.data, 121)
-    F = seq.uv.shape[0]
-    key = jax.random.PRNGKey(42)
-    f0, f1 = vo.frame_of(seq, 0), vo.frame_of(seq, 1)
-    fc, fn = vo.frames_of(seq, 0, F - 1), vo.frames_of(seq, 1, F)
-    B = args.batch
-
-    def batched(k, bf0, bf1, bc, bn):
-        s, _ = jax.vmap(lambda kk, a, b: vo.bootstrap(kk, a, b, cfg))(k, bf0, bf1)
-        s, lg = jax.vmap(lambda st, c, n: vo.scan_tracker(st, c, n, cfg))(s, bc, bn)
-        return lg.pose
-
-    batched_j = jax.jit(batched)
-    tile = lambda x: jnp.broadcast_to(x[None], (B,) + x.shape)
-    a = (jax.random.split(key, B), jax.tree.map(tile, f0), jax.tree.map(tile, f1),
-         jax.tree.map(tile, fc), jax.tree.map(tile, fn))
+    seq = (load_sequence(args.data, 121) if args.data
+           else profiles.control_sequence(121))
+    batched_j = jax.jit(profiles.batched_tracker(cfg))
+    a = profiles.batched_inputs(seq, args.batch)
     jax.block_until_ready(batched_j(*a))  # warm
 
+    args.outdir = args.outdir or tempfile.mkdtemp(prefix="jaxvo_trace_")
     os.makedirs(args.outdir, exist_ok=True)
     with jax.profiler.trace(args.outdir):
         jax.block_until_ready(batched_j(*a))
@@ -69,7 +65,7 @@ def main():
     agg = collections.Counter()
     events_total = 0
     for plane in pd.planes:
-        if "TPU" not in plane.name and "/device" not in plane.name.lower():
+        if not plane.name.startswith("/device:GPU"):
             continue
         for line in plane.lines:
             for ev in line.events:

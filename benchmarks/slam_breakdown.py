@@ -1,9 +1,7 @@
 """Stage-cost attribution for SLAM-mode tracking (engine/slam.py).
 
-Round-3 measurement: slam_fps 21.7 vs plain-tracker 3,146 on the 200-frame
-TPU loop fixture — a 145x cliff.  This probe times the pieces of the
-interleaved local-BA branch in isolation so the optimization targets the
-real cost, not a guess:
+This probe times the pieces of the interleaved local-BA branch in
+isolation so the optimization targets the real cost, not a guess:
 
   tracker      — the plain scanned tracker (the floor)
   slam         — the full _slam_scan program
@@ -28,13 +26,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tpuvo.ba.window import BAProblem, ba_solve
-from tpuvo.config import BAConfig, EngineConfig, PICPConfig
-from tpuvo.data import synthetic
-from tpuvo.engine import vo
-from tpuvo.engine.slam import _local_ba_cfg, run_sequence_slam
-from tpuvo.ops import lie
-from tpuvo.ops.match import match_descriptors
+from jaxvo.ba.window import BAProblem, ba_solve
+from jaxvo.config import BAConfig, EngineConfig, PICPConfig
+from jaxvo.data import synthetic
+from jaxvo.engine import vo
+from jaxvo.engine.slam import _local_ba_cfg, run_sequence_slam
+from jaxvo.ops import lie
+from jaxvo.ops.match import match_descriptors
 
 
 def timeit(fn, reps=5):
@@ -132,7 +130,7 @@ def main():
     t_solve1 = timeit(lambda: jax.block_until_ready(solve1(prob)[0].poses))
 
     # fixed-overhead attribution inside ba_solve
-    from tpuvo.ba.window import _compact_active, eval_robust_chi
+    from jaxvo.ba.window import _compact_active, eval_robust_chi
 
     L = prob.points.shape[0]
     La = min(L, W * prob.obs_lm.shape[1] + 1)
@@ -172,7 +170,8 @@ def main():
         "chi_eval_ms": round(1e3 * t_chi, 3),
         "slam_fps": round((F - 1) / t_slam, 1),
         "track_fps": round((F - 1) / t_track, 1),
-        "device": str(jax.devices()[0]),
+        "platform": jax.devices()[0].platform,
+        "device_kind": jax.devices()[0].device_kind,
     }
     print(json.dumps(out))
 

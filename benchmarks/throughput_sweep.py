@@ -17,9 +17,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from tpuvo.config import EngineConfig, MatcherConfig, PICPConfig
-from tpuvo.data import load_sequence
-from tpuvo.engine import vo
+from jaxvo.config import EngineConfig, MatcherConfig, PICPConfig
+from jaxvo.data import load_sequence
+from jaxvo.engine import vo
 
 
 def main():

@@ -1,18 +1,18 @@
-// tpuvo native I/O: fast measurement-file parser.
+// jaxvo native I/O: fast measurement-file parser.
 //
 // Native equivalent of the reference's C++ data layer
 // (src/my_utilities.cpp:20-134 — tokenizer + per-line parse): a
 // zero-dependency C++17 scanner that fills caller-allocated padded arrays
 // (structure-of-arrays, the device upload layout) in one pass with no
-// per-token heap allocation.  Exposed via ctypes from tpuvo/data/native.py.
+// per-token heap allocation.  Exposed via ctypes from jaxvo/data/native.py.
 //
-// File format (see tpuvo/data/loader.py):
+// File format (see jaxvo/data/loader.py):
 //   seq: <i>
 //   gt_pose: <x> <y> <theta>
 //   odom_pose: <x> <y> <theta>
 //   point <id_meas> <id_real> <u> <v> <d0> ... <d9>
 //
-// Build: make -C csrc   (produces libtpuvo_io.so)
+// Build: make -C csrc   (produces libjaxvo_io.so)
 
 #include <cstdio>
 #include <cstdlib>
@@ -63,7 +63,7 @@ extern "C" {
 // Parses one meas file into the caller's padded arrays.
 // Returns the number of observations (>= 0) or a negative error code:
 //   -1 cannot open/read file, -2 more observations than max_obs.
-int tpuvo_parse_measurement(
+int jaxvo_parse_measurement(
     const char* path, int max_obs, int desc_dim,
     float* gt_pose,     // (3,)
     float* odom_pose,   // (3,)
@@ -134,7 +134,7 @@ int tpuvo_parse_measurement(
 }
 
 // Parses world.dat: rows of "id x y z d0..d9"; returns row count or -1.
-int tpuvo_parse_world(
+int jaxvo_parse_world(
     const char* path, int max_points, int desc_dim,
     int* ids, float* xyz, float* desc
 ) {

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpuvo.ba.window import BAProblem, ba_solve, ba_step, linearize_ba
-from tpuvo.config import BAConfig, EngineConfig
-from tpuvo.data import synthetic
+from jaxvo.ba.window import BAProblem, ba_solve, ba_step, linearize_ba
+from jaxvo.config import BAConfig, EngineConfig
+from jaxvo.data import synthetic
 
 CFG = EngineConfig()
 K = jnp.asarray(CFG.K())
@@ -32,7 +32,7 @@ def make_ba_problem(
 
     poses0 = poses_gt.copy()
     if pose_noise > 0:
-        from tpuvo.ops import lie
+        from jaxvo.ops import lie
 
         for i in range(2 if fix_first_two else 1, W):
             xi = pose_noise * rng.standard_normal(6).astype(np.float32)
@@ -59,7 +59,7 @@ def make_ba_problem(
 
 
 def reproj_rms(prob):
-    from tpuvo.ops.camera import project_points
+    from jaxvo.ops.camera import project_points
 
     errs = []
     for f in range(prob.poses.shape[0]):
@@ -186,8 +186,8 @@ def test_ba_compact_matches_full():
 
 
 def test_assembly_onehot_matches_segsum():
-    """The SLAM-mode local BA hard-codes assembly='onehot' (MXU one-hot
-    matmuls instead of TPU-serializing segment_sum scatters); the two
+    """The SLAM-mode local BA hard-codes assembly='onehot' (one-hot
+    matmuls instead of segment_sum scatters); the two
     assemblies must produce identical normal-equation blocks and solves.
     Fast non-slow coverage for the production default path."""
     import sys, os
@@ -198,7 +198,7 @@ def test_assembly_onehot_matches_segsum():
     K = jnp.asarray(cfg.K())
     a = BAConfig(iterations=4, assembly="segsum")
     b = BAConfig(iterations=4, assembly="onehot")
-    from tpuvo.ba.window import linearize_ba
+    from jaxvo.ba.window import linearize_ba
 
     la = linearize_ba(prob, K, cfg.width, cfg.height, a)
     lb = linearize_ba(prob, K, cfg.width, cfg.height, b)
@@ -215,7 +215,7 @@ def test_compact_mask_matches_sort():
     """Sort-free 'mask' renumbering (the SLAM-mode default) is an exact
     twin of the argsort-based compaction, including the capped-overflow
     sentinel case."""
-    from tpuvo.ba.window import _compact_active, _compact_active_mask
+    from jaxvo.ba.window import _compact_active, _compact_active_mask
 
     rng = np.random.default_rng(5)
     for L, La, rows, cols in ((64, 33, 4, 12), (512, 65, 6, 50),

@@ -11,11 +11,11 @@ Two refiners exist:
 import numpy as np
 import pytest
 
-from tpuvo.config import BAConfig, EngineConfig
-from tpuvo.data import synthetic
-from tpuvo.engine.ba_refine import refine_trajectory, refine_trajectory_global
-from tpuvo.engine.eval import evaluate, metrics_dict
-from tpuvo.engine.vo import run_sequence
+from jaxvo.config import BAConfig, EngineConfig
+from jaxvo.data import synthetic
+from jaxvo.engine.ba_refine import refine_trajectory, refine_trajectory_global
+from jaxvo.engine.eval import evaluate, metrics_dict
+from jaxvo.engine.vo import run_sequence
 
 
 @pytest.mark.slow

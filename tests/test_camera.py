@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from tpuvo.config import EngineConfig
-from tpuvo.ops import camera, lie
+from jaxvo.config import EngineConfig
+from jaxvo.ops import camera, lie
 
 CFG = EngineConfig()
 K = jnp.asarray(CFG.K())

@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from tpuvo.cli import main
+from jaxvo.cli import _apply_options, build_parser, main
 
 
 def test_cli_run_writes_artifacts(tmp_path, data_dir, capsys):
@@ -61,3 +61,25 @@ def test_cli_slam_refine_loop(tmp_path, data_dir, capsys):
     # refinement must not blow up an already-good short trajectory
     assert summary["refined"]["ate_rmse"] < 2.0 * max(
         summary["tracked"]["ate_rmse"], 0.05)
+
+
+@pytest.mark.parametrize("argv, backend, method", [
+    ([], "xla", "direct"),
+    (["--picp", "pallas"], "pallas", "direct"),
+    (["--matcher", "mxu_bf16", "--picp", "xla"], "xla", "mxu_bf16"),
+])
+def test_cli_engine_options(argv, backend, method):
+    """--picp picks the PICP solver (the XLA loop unless the fused GPU
+    kernel is asked for); --matcher the distance form."""
+    from jaxvo.config import EngineConfig
+
+    args = build_parser().parse_args(argv + ["run"])
+    cfg = _apply_options(EngineConfig(mode="fixed"), args)
+    assert cfg.picp.backend == backend
+    assert cfg.matcher.method == method
+    assert cfg.picp.convergence_threshold == EngineConfig().picp.convergence_threshold
+
+
+def test_cli_rejects_unknown_picp_solver():
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--picp", "mosaic", "run"])

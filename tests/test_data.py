@@ -4,8 +4,8 @@ import os
 
 import numpy as np
 
-from tpuvo.config import DESC_DIM, EngineConfig
-from tpuvo.data import load_camera_config, load_trajectory, load_world_points, parse_measurement
+from jaxvo.config import DESC_DIM, EngineConfig
+from jaxvo.data import load_camera_config, load_trajectory, load_world_points, parse_measurement
 
 
 def test_parse_first_measurement(data_dir):

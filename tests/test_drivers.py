@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from tpuvo.config import EngineConfig
-from tpuvo.engine.drivers import (
+from jaxvo.config import EngineConfig
+from jaxvo.engine.drivers import (
     duplicate_landmark_count,
     run_match_test,
     run_pose_recovery,
@@ -61,7 +61,7 @@ def test_triangulate_test_driver(sequence, world):
 
 
 def test_duplicate_count_on_real_run(sequence):
-    from tpuvo.engine.drivers import run_icp
+    from jaxvo.engine.drivers import run_icp
 
     state, *_ = run_icp(sequence)
     d = duplicate_landmark_count(state)

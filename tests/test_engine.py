@@ -4,10 +4,10 @@ the reference's shipped artifacts (SURVEY.md §6 baseline)."""
 import numpy as np
 import pytest
 
-from tpuvo.config import EngineConfig
-from tpuvo.data import synthetic
-from tpuvo.engine.eval import evaluate, metrics_dict, world_points_output
-from tpuvo.engine.vo import run_sequence
+from jaxvo.config import EngineConfig
+from jaxvo.data import synthetic
+from jaxvo.engine.eval import evaluate, metrics_dict, world_points_output
+from jaxvo.engine.vo import run_sequence
 
 
 @pytest.fixture(scope="module")
@@ -91,7 +91,7 @@ def test_synthetic_with_noise():
 
 
 def test_eval_writes_reference_format(tmp_path, real_run, sequence):
-    from tpuvo.engine.eval import write_outputs
+    from jaxvo.engine.eval import write_outputs
 
     state, logs, poses, diag = real_run
     res = evaluate(poses, sequence.gt_pose)
@@ -112,9 +112,9 @@ def test_full_run_matches_two_dispatch():
     program boundary removed."""
     import jax
 
-    from tpuvo.config import EngineConfig
-    from tpuvo.data import synthetic
-    from tpuvo.engine import vo
+    from jaxvo.config import EngineConfig
+    from jaxvo.data import synthetic
+    from jaxvo.engine import vo
 
     cfg = EngineConfig(mode="fixed", map_capacity=256, max_obs=64)
     world = synthetic.make_world(11, n_landmarks=300, xy_extent=8.0)
@@ -145,9 +145,9 @@ def test_online_vo_matches_batch(tmp_path):
     for-pose, including across a checkpoint/resume boundary mid-stream."""
     import jax
 
-    from tpuvo.config import EngineConfig
-    from tpuvo.data import synthetic
-    from tpuvo.engine import vo
+    from jaxvo.config import EngineConfig
+    from jaxvo.data import synthetic
+    from jaxvo.engine import vo
 
     cfg = EngineConfig(mode="fixed", map_capacity=256, max_obs=64)
     world = synthetic.make_world(13, n_landmarks=300, xy_extent=8.0)

@@ -4,12 +4,12 @@ the reference would exit(EXIT_FAILURE) or silently derail."""
 import numpy as np
 import pytest
 
-from tpuvo.config import EngineConfig, PICPConfig
-from tpuvo.data import synthetic
-from tpuvo.engine.eval import evaluate, metrics_dict
-from tpuvo.engine.vo import run_sequence
-from tpuvo.utils import faults
-from tpuvo.utils.checks import validate_state
+from jaxvo.config import EngineConfig, PICPConfig
+from jaxvo.data import synthetic
+from jaxvo.engine.eval import evaluate, metrics_dict
+from jaxvo.engine.vo import run_sequence
+from jaxvo.utils import faults
+from jaxvo.utils.checks import validate_state
 
 
 @pytest.fixture(scope="module")
@@ -37,9 +37,9 @@ def test_outlier_pixels_tolerated(clean_seq):
     (finite, bounded drift), and the robust global-BA pass with a tighter
     kernel must recover most of the damage (the corrupted observations
     saturate the robust weight and are excluded)."""
-    from tpuvo.config import BAConfig
-    from tpuvo.engine.ba_refine import refine_trajectory_global
-    from tpuvo.engine.vo import run_sequence
+    from jaxvo.config import BAConfig
+    from jaxvo.engine.ba_refine import refine_trajectory_global
+    from jaxvo.engine.vo import run_sequence
 
     seq, gt = clean_seq
     bad = faults.corrupt_pixels(seq, fraction=0.1, magnitude=150.0, seed=1)
@@ -83,9 +83,9 @@ def test_online_vo_survives_corrupt_frames():
     my_utilities.cpp:269-273 semantics) and recover on good frames."""
     import jax.numpy as jnp
 
-    from tpuvo.config import EngineConfig, PICPConfig
-    from tpuvo.data import synthetic
-    from tpuvo.engine import vo
+    from jaxvo.config import EngineConfig, PICPConfig
+    from jaxvo.data import synthetic
+    from jaxvo.engine import vo
 
     cfg = EngineConfig(mode="fixed", map_capacity=256, max_obs=64,
                        picp=PICPConfig(min_matches_reuse_pose=8))

@@ -4,7 +4,7 @@ Row-wise tolerance diffs of parity-mode output against
 ``/root/reference/output/`` (written by exec/icp_test.cpp:147-210).  The
 RANSAC draw differs from OpenCV's, so the tolerances are calibrated to the
 measured CPU envelope (~2x headroom) — tight enough that drift like the
-round-2 TPU regression (trans_err_mean 0.44 vs the reference's 0.21, per-
+round-2 accelerator regression (trans_err_mean 0.44 vs the reference's 0.21, per-
 frame deviations up to 1.66) fails every assertion here.
 """
 
@@ -13,9 +13,9 @@ import os
 import numpy as np
 import pytest
 
-from tpuvo.config import EngineConfig
-from tpuvo.engine.eval import evaluate, world_points_output
-from tpuvo.engine.vo import run_sequence
+from jaxvo.config import EngineConfig
+from jaxvo.engine.eval import evaluate, world_points_output
+from jaxvo.engine.vo import run_sequence
 
 
 @pytest.fixture(scope="module")

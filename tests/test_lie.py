@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpuvo.ops import lie
+from jaxvo.ops import lie
 
 
 def rnd(*shape, seed=0):

@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpuvo.config import EngineConfig
-from tpuvo.data import synthetic
-from tpuvo.engine import vo
-from tpuvo.engine.state import empty_state
+from jaxvo.config import EngineConfig
+from jaxvo.data import synthetic
+from jaxvo.engine import vo
+from jaxvo.engine.state import empty_state
 
 
 def small_cfg(**kw):
@@ -115,7 +115,7 @@ def test_eviction_frees_and_recycles():
 
 
 def test_slam_rejects_unsafe_age():
-    from tpuvo.engine.slam import run_sequence_slam
+    from jaxvo.engine.slam import run_sequence_slam
 
     cfg = EngineConfig(mode="fixed", map_evict_age=4,
                        local_ba_window=16, local_ba_every=2)

@@ -12,13 +12,13 @@ import pytest
 
 pytestmark = pytest.mark.slow  # module-scoped 120-frame SLAM fixture
 
-from tpuvo.ba.loop import close_loops, covisibility_counts, detect_loops
-from tpuvo.config import BAConfig, EngineConfig, PICPConfig
-from tpuvo.data import synthetic
-from tpuvo.engine.ba_refine import refine_trajectory_loop
-from tpuvo.engine.eval import evaluate, metrics_dict
-from tpuvo.engine.slam import run_sequence_slam
-from tpuvo.ops.match import match_descriptors
+from jaxvo.ba.loop import close_loops, covisibility_counts, detect_loops
+from jaxvo.config import BAConfig, EngineConfig, PICPConfig
+from jaxvo.data import synthetic
+from jaxvo.engine.ba_refine import refine_trajectory_loop
+from jaxvo.engine.eval import evaluate, metrics_dict
+from jaxvo.engine.slam import run_sequence_slam
+from jaxvo.ops.match import match_descriptors
 
 
 def test_covisibility_counts_exact():
@@ -136,7 +136,7 @@ def test_close_loops_nondegrading_without_drift():
     gt = synthetic.make_planar_trajectory(40, step=0.2, turn=0.0, seed=3)
     world = synthetic.make_world(3, n_landmarks=2000, xy_extent=12.0)
     seq = synthetic.render_sequence(world, gt, cfg, pixel_noise=0.2, seed=3)
-    from tpuvo.engine.vo import run_sequence
+    from jaxvo.engine.vo import run_sequence
 
     state, logs, poses, diag = run_sequence(seq, cfg)
     K = jnp.asarray(cfg.K())

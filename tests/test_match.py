@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpuvo.ops.match import match_descriptors, match_stats
+from jaxvo.ops.match import match_descriptors, match_stats
 
 
 def reference_match(desc1, desc2, dist_thr=0.2, ratio_thr=0.8):
@@ -138,7 +138,7 @@ def test_vmap_over_frame_pairs(sequence):
 
 def test_fused_pair_matcher_agrees(sequence):
     """match_descriptors_pair == two independent mxu-method matches."""
-    from tpuvo.ops.match import match_descriptors_pair
+    from jaxvo.ops.match import match_descriptors_pair
 
     s = sequence
     # mimic the tracker's two calls on frames (1 -> map-like frame 5) and (0 -> 1)
@@ -156,3 +156,75 @@ def test_fused_pair_matcher_agrees(sequence):
         assert np.array_equal(np.asarray(got.idx)[sel], np.asarray(exp.idx)[sel])
         np.testing.assert_allclose(
             np.asarray(got.best)[sel], np.asarray(exp.best)[sel], atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# every distance form against a NumPy brute-force top-2 (the cases the
+# removed tiled kernel was tested on: random with planted matches, a
+# best/second split across the map with an exact tie, sizes that align
+# with nothing)
+# ---------------------------------------------------------------------------
+def numpy_top2(d1, v1, d2, v2, dist_thr=0.2, ratio_thr=0.8):
+    d = ((d1[:, None, :].astype(np.float64) - d2[None].astype(np.float64)) ** 2).sum(-1)
+    d = np.where(v2[None, :], d, np.inf)
+    idx = np.argmin(d, axis=1)  # first index on ties, as the reference
+    rows = np.arange(len(d1))
+    best = d[rows, idx]
+    d2nd = d.copy()
+    d2nd[rows, idx] = np.inf
+    second = d2nd.min(axis=1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ok = (best < dist_thr) & (best / second < ratio_thr) & v1
+    return idx, ok, best, second
+
+
+def _case_random():
+    rng = np.random.default_rng(0)
+    d1 = rng.uniform(-1, 1, (64, 10)).astype(np.float32)
+    d2 = rng.uniform(-1, 1, (1024, 10)).astype(np.float32)
+    d2[5] = d1[3] + 0.01
+    d2[700] = d1[20] + 0.02
+    v2 = np.ones(1024, bool)
+    v2[100:130] = False
+    return d1, np.ones(64, bool), d2, v2
+
+
+def _case_split_and_tie():
+    d1 = np.zeros((8, 10), np.float32)
+    d1[1] = 0.5
+    d2 = np.ones((1024, 10), np.float32)
+    d2[3] = 0.05      # row 0: best early in the map ...
+    d2[900] = 0.06    # ... second near its end
+    d2[10] = 0.5      # row 1: an exact tie — first index wins, and the
+    d2[800] = 0.5     # duplicate makes the ratio 1 (rejected)
+    return d1, np.ones(8, bool), d2, np.ones(1024, bool)
+
+
+def _case_unaligned():
+    rng = np.random.default_rng(2)
+    d1 = rng.uniform(-1, 1, (50, 10)).astype(np.float32)
+    d2 = rng.uniform(-1, 1, (700, 10)).astype(np.float32)
+    d2[650] = d1[10]
+    return d1, np.ones(50, bool), d2, np.ones(700, bool)
+
+
+# best-distance tolerance per form: the bf16 cross term rounds each
+# descriptor entry to 8 mantissa bits (~4e-3 relative on O(1) values)
+_BEST_ATOL = {"direct": 1e-5, "mxu": 1e-4, "mxu_bf16": 3e-2}
+
+
+@pytest.mark.parametrize("case", [_case_random, _case_split_and_tie,
+                                  _case_unaligned])
+@pytest.mark.parametrize("method", ["direct", "mxu", "mxu_bf16"])
+def test_methods_match_numpy_top2(method, case):
+    d1, v1, d2, v2 = case()
+    idx, ok, best, second = numpy_top2(d1, v1, d2, v2)
+    got = match_descriptors(jnp.asarray(d1), jnp.asarray(v1),
+                            jnp.asarray(d2), jnp.asarray(v2), method=method)
+    np.testing.assert_array_equal(np.asarray(got.valid), ok)
+    np.testing.assert_array_equal(np.asarray(got.idx)[ok], idx[ok])
+    np.testing.assert_allclose(np.asarray(got.best)[ok], best[ok],
+                               atol=_BEST_ATOL[method])
+    if case is _case_split_and_tie:
+        assert int(got.idx[0]) == 3 and int(got.idx[1]) == 10
+        assert not bool(got.valid[1])

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from tpuvo.data import native
-from tpuvo.data.loader import load_sequence
+from jaxvo.data import native
+from jaxvo.data.loader import load_sequence
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native loader not built (make -C csrc)"

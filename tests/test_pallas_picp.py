@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpuvo.config import EngineConfig, PICPConfig
-from tpuvo.ops import picp
-from tpuvo.ops.pallas.picp_kernel import solve_pallas
+from jaxvo.config import EngineConfig, PICPConfig
+from jaxvo.ops import picp
+from jaxvo.ops.pallas.picp_kernel import solve_pallas
 
 CFG = EngineConfig()
 K = CFG.K()

@@ -1,23 +1,23 @@
 """Multi-device tests on the 8-way virtual CPU mesh (conftest sets
 xla_force_host_platform_device_count=8 — same Mesh/shard_map code paths as
-a real TPU slice)."""
+a real multi-GPU host)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpuvo.ba.window import ba_solve
-from tpuvo.config import BAConfig, EngineConfig
-from tpuvo.ops.match import match_descriptors
-from tpuvo.parallel import (
+from jaxvo.ba.window import ba_solve
+from jaxvo.config import BAConfig, EngineConfig
+from jaxvo.ops.match import match_descriptors
+from jaxvo.parallel import (
     local_mesh,
     shard_ba_problem,
     sharded_ba_solve,
     sharded_ba_step,
     sharded_match_descriptors,
 )
-from tpuvo.parallel.ba_sharded import gather_points
+from jaxvo.parallel.ba_sharded import gather_points
 
 CFG = EngineConfig()
 K = jnp.asarray(CFG.K())
@@ -129,10 +129,11 @@ def test_sharded_ba_step_runs_jitted(mesh):
     assert int(stats.num_obs) > 0
 
 
-def test_sharded_match_pallas_parity(mesh):
-    """method='pallas' inside the sharded matcher: each virtual device
-    streams its landmark shard through the Mosaic kernel (interpret mode
-    on CPU); decisions must match the dense XLA oracle exactly."""
+@pytest.mark.parametrize("method", ["direct", "mxu"])
+def test_sharded_match_parity_by_method(mesh, method):
+    """The sharded matcher per distance form: an exact hit in shard 0 and
+    its runner-up in a later shard merge exactly; decisions match the
+    dense single-device matcher of the same form."""
     rng = np.random.default_rng(5)
     d1 = jnp.asarray(rng.uniform(-1, 1, (64, 10)).astype(np.float32))
     v1 = jnp.ones(64, bool)
@@ -141,12 +142,16 @@ def test_sharded_match_pallas_parity(mesh):
     desc2[3000] = np.asarray(d1[3]) + 0.01    # runner-up in a later shard
     valid2 = np.ones(4096, bool)
     valid2[512:540] = False
-    ref = match_descriptors(d1, v1, jnp.asarray(desc2), jnp.asarray(valid2))
+    ref = match_descriptors(d1, v1, jnp.asarray(desc2), jnp.asarray(valid2),
+                            method=method)
     got = sharded_match_descriptors(
         mesh, d1, v1, jnp.asarray(desc2), jnp.asarray(valid2),
-        method="pallas")
+        method=method)
     assert np.array_equal(np.asarray(ref.valid), np.asarray(got.valid))
     m = np.asarray(ref.valid)
+    assert m[3] and int(got.idx[3]) == 100
     assert np.array_equal(np.asarray(ref.idx)[m], np.asarray(got.idx)[m])
     np.testing.assert_allclose(
-        np.asarray(ref.best)[m], np.asarray(got.best)[m], atol=1e-4)
+        np.asarray(ref.best)[m], np.asarray(got.best)[m], atol=1e-5)
+    np.testing.assert_allclose(
+        np.asarray(ref.second)[m], np.asarray(got.second)[m], atol=1e-5)

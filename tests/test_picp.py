@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpuvo.config import EngineConfig, PICPConfig
-from tpuvo.data import synthetic
-from tpuvo.ops import lie, picp
+from jaxvo.config import EngineConfig, PICPConfig
+from jaxvo.data import synthetic
+from jaxvo.ops import lie, picp
 
 CFG = EngineConfig()
 K = CFG.K()
@@ -291,9 +291,9 @@ def test_unrolled_matches_while_loop():
 def test_unrolled_through_track_step():
     """The engine branch (cfg.picp.unrolled_rounds > 0) produces the same
     trajectory as the while_loop path on a synthetic sequence."""
-    from tpuvo.config import EngineConfig
-    from tpuvo.data import synthetic
-    from tpuvo.engine import vo
+    from jaxvo.config import EngineConfig
+    from jaxvo.data import synthetic
+    from jaxvo.engine import vo
 
     ecfg = EngineConfig(mode="fixed")
     world = synthetic.make_world(3, n_landmarks=600, xy_extent=6.0)

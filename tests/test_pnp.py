@@ -10,9 +10,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tpuvo.config import EngineConfig
-from tpuvo.ops import lie
-from tpuvo.ops.pnp import pnp_dlt, pnp_solve
+from jaxvo.config import EngineConfig
+from jaxvo.ops import lie
+from jaxvo.ops.pnp import pnp_dlt, pnp_solve
 
 CFG = EngineConfig()
 K = jnp.asarray(CFG.K())

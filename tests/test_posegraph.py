@@ -13,8 +13,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tpuvo.ba import posegraph as pg
-from tpuvo.ops import lie
+from jaxvo.ba import posegraph as pg
+from jaxvo.ops import lie
 
 
 def _circle_gt(F=40, radius=5.0):
@@ -99,8 +99,8 @@ def test_loop_closure_repairs_drift():
 
 @pytest.mark.slow
 def test_sharded_matches_single_device():
-    from tpuvo.parallel.mesh import local_mesh
-    from tpuvo.parallel.posegraph_sharded import sharded_pgo_solve
+    from jaxvo.parallel.mesh import local_mesh
+    from jaxvo.parallel.posegraph_sharded import sharded_pgo_solve
 
     gt = _circle_gt(24)
     rels, dead = _noisy_chain(gt, seed=5)

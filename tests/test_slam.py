@@ -10,11 +10,11 @@ counterpart (the reference never revisits a pose).
 import numpy as np
 import pytest
 
-from tpuvo.config import BAConfig, EngineConfig, PICPConfig
-from tpuvo.data import synthetic
-from tpuvo.engine.eval import evaluate, metrics_dict
-from tpuvo.engine.slam import run_sequence_slam
-from tpuvo.engine.vo import run_sequence
+from jaxvo.config import BAConfig, EngineConfig, PICPConfig
+from jaxvo.data import synthetic
+from jaxvo.engine.eval import evaluate, metrics_dict
+from jaxvo.engine.slam import run_sequence_slam
+from jaxvo.engine.vo import run_sequence
 
 
 def _kitti_fixture(n_frames=60, seed=7):
@@ -110,7 +110,7 @@ def test_slam_strided_window_tracks():
 
 
 def test_slam_stride_evict_guard():
-    from tpuvo.engine.slam import run_sequence_slam as slam
+    from jaxvo.engine.slam import run_sequence_slam as slam
 
     cfg = EngineConfig(mode="fixed", local_ba_window=8, local_ba_stride=4,
                        local_ba_every=2, map_evict_age=20)
@@ -125,8 +125,8 @@ def test_slam_stride_evict_guard():
 def test_online_slam_matches_batch():
     """The streaming OnlineSLAM session must reproduce run_sequence_slam
     pose-for-pose (same jitted step function, scan vs per-frame dispatch)."""
-    from tpuvo.engine.slam import OnlineSLAM
-    from tpuvo.engine import vo as _vo
+    from jaxvo.engine.slam import OnlineSLAM
+    from jaxvo.engine import vo as _vo
 
     cfg, gt, seq, gt_cam = _kitti_fixture(n_frames=44)
     F = seq.uv.shape[0]
@@ -147,8 +147,8 @@ def test_online_slam_matches_batch():
 def test_online_slam_strided():
     """Streaming session with the keyframe-strided window (the
     long-sequence profile): must match the batch strided run."""
-    from tpuvo.engine.slam import OnlineSLAM
-    from tpuvo.engine import vo as _vo
+    from jaxvo.engine.slam import OnlineSLAM
+    from jaxvo.engine import vo as _vo
 
     cfg, gt, seq, gt_cam = _kitti_fixture(n_frames=40)
     cfg = cfg.replace(local_ba_window=8, local_ba_stride=2)

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from tpuvo.config import EngineConfig
-from tpuvo.engine.eval import evaluate, metrics_dict
-from tpuvo.engine.vo import run_sequence, run_threshold_sweep
+from jaxvo.config import EngineConfig
+from jaxvo.engine.eval import evaluate, metrics_dict
+from jaxvo.engine.vo import run_sequence, run_threshold_sweep
 
 
 @pytest.mark.slow
@@ -16,7 +16,7 @@ def test_sweep_matches_individual_runs(sequence):
 
     # NOTE: bitwise pose equality with the unbatched run is not expected —
     # vmap changes fusion order and the monocular feedback loop is
-    # numerically chaotic (see the TPU-vs-CPU analysis in ops/picp.py
+    # numerically chaotic (see the fp-order analysis in ops/picp.py
     # sentinel comment); the gate is metric-level.
     m_ref = metrics_dict(evaluate(np.asarray(run_sequence(sequence)[2]), sequence.gt_pose))
     m_3000 = metrics_dict(evaluate(np.asarray(poses[1]), sequence.gt_pose))

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpuvo.config import EngineConfig, RansacConfig
-from tpuvo.data import synthetic
-from tpuvo.ops import lie, triangulate, twoview
-from tpuvo.ops.match import match_descriptors
+from jaxvo.config import EngineConfig, RansacConfig
+from jaxvo.data import synthetic
+from jaxvo.ops import lie, triangulate, twoview
+from jaxvo.ops.match import match_descriptors
 
 CFG = EngineConfig()
 K = jnp.asarray(CFG.K())
@@ -98,7 +98,7 @@ def test_triangulation_matches_projection_roundtrip():
     pts, _ = triangulate.triangulate_two_view(
         K, jnp.asarray(T_wc1), jnp.asarray(T_wc2), jnp.asarray(uv1), jnp.asarray(uv2)
     )
-    from tpuvo.ops import camera as cam_ops
+    from jaxvo.ops import camera as cam_ops
 
     uv_re, valid = cam_ops.project_points(
         K, lie.inv_se3(jnp.asarray(T_wc1)), pts, CFG.width, CFG.height

@@ -7,18 +7,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpuvo.config import EngineConfig, PICPConfig
-from tpuvo.data import synthetic
-from tpuvo.engine.state import empty_state
-from tpuvo.engine.vo import bootstrap, frame_of, run_sequence, track_step
-from tpuvo.utils.checkpoint import load_state, save_state
-from tpuvo.utils.checks import (
+from jaxvo.config import EngineConfig, PICPConfig
+from jaxvo.data import synthetic
+from jaxvo.engine.state import empty_state
+from jaxvo.engine.vo import bootstrap, frame_of, run_sequence, track_step
+from jaxvo.utils.checkpoint import load_state, save_state
+from jaxvo.utils.checks import (
     StateValidationError,
     finite_or_previous,
     validate_frame_log,
     validate_state,
 )
-from tpuvo.utils.metrics import MetricsLogger, log_frame_logs
+from jaxvo.utils.metrics import MetricsLogger, log_frame_logs
 
 
 def small_run():
@@ -43,7 +43,7 @@ def test_checkpoint_roundtrip(tmp_path):
 @pytest.mark.slow
 def test_orbax_checkpoint_roundtrip(tmp_path):
     pytest.importorskip("orbax.checkpoint")
-    from tpuvo.utils.checkpoint import OrbaxCheckpointer
+    from jaxvo.utils.checkpoint import OrbaxCheckpointer
 
     (state, logs, poses, diag), cfg, seq = small_run()
     ckpt = OrbaxCheckpointer(str(tmp_path / "orbax"), keep=2)
@@ -109,8 +109,8 @@ def test_chunked_resume_matches_uninterrupted(tmp_path):
     checkpoint and compare against a straight run_sequence."""
     import jax.numpy as jnp
 
-    from tpuvo.data import synthetic
-    from tpuvo.engine.vo import run_sequence, run_sequence_chunked
+    from jaxvo.data import synthetic
+    from jaxvo.engine.vo import run_sequence, run_sequence_chunked
 
     cfg = EngineConfig(mode="fixed")
     world = synthetic.make_world(13, n_landmarks=800, xy_extent=8.0)
@@ -131,3 +131,46 @@ def test_chunked_resume_matches_uninterrupted(tmp_path):
     np.testing.assert_allclose(
         np.asarray(poses2), np.asarray(poses_ref), atol=1e-4)
     assert int(state2.map_count) == int(state_ref.map_count)
+
+
+# ---------------------------------------------------------------------------
+# trace -> device metrics (jaxvo.utils.profiling), on hand-made events
+# ---------------------------------------------------------------------------
+def _ev(name, start, dur, **stats):
+    return {"plane": "/device:GPU:0", "line": "Stream #13", "name": name,
+            "start_ns": start, "dur_ns": dur, "stats": stats}
+
+
+def test_device_summary_busy_idle_and_copies():
+    from jaxvo.utils.profiling import busy_ns, device_summary
+
+    evs = [_ev("fusion_1", 0, 100), _ev("fusion_2", 50, 100),   # overlap
+           _ev("MemcpyD2H", 300, 10), _ev("Memcpy DtoH (Device -> Pinned)", 390, 10)]
+    assert busy_ns(evs) == 150 + 10 + 10
+    s = device_summary(evs)
+    assert s["events"] == 4 and s["d2h_copies"] == 2
+    assert abs(s["span_ms"] - 400e-6) < 1e-12
+    assert abs(s["idle_share"] - (1 - 170 / 400)) < 1e-12
+    assert device_summary([])["busy_ms"] == 0.0
+
+
+def test_time_by_scope_uses_innermost_scope_and_kernel_names():
+    from jaxvo.utils.profiling import hlo_op_names, time_by_scope
+
+    hlo = "\n".join([
+        '  %fusion.3 = f32[8]{0} fusion(%p), kind=kLoop, '
+        'metadata={op_name="jit(run)/while/body/match/dot_general"}',
+        '  ROOT %loop_add_fusion.7 = f32[8]{0} fusion(%q), kind=kLoop, '
+        'metadata={op_name="jit(run)/ba/while/body/picp/add"}',
+    ])
+    ops = hlo_op_names(hlo)
+    assert ops["fusion.3"] == ops["fusion_3"]
+    evs = [
+        _ev("fusion_3", 0, 2_000_000, hlo_op="fusion.3"),
+        # inside a CUDA graph the stat names the command buffer: the
+        # kernel (fusion) name decides
+        _ev("loop_add_fusion_7", 0, 1_000_000, hlo_op="command_buffer"),
+        _ev("sm90_xmma_gemm", 0, 500_000, hlo_op="command_buffer"),
+    ]
+    ms = time_by_scope(evs, ops, ["match", "picp", "ba"])
+    assert ms == {"match": 2.0, "picp": 1.0, "ba": 0.0, "other": 0.5}
